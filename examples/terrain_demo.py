@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 # examples/terrain_demo.py — 512x512 synthetic-DEM terrain snapshot.
 #
-# The TPU-native counterpart of the reference's examples/terrain_demo.py
+# The JAX counterpart of the reference's examples/terrain_demo.py
 # (preset JSON merge at :52-80): renders the path-traced terrain reference
 # on a synthetic DEM with a preset/override config chain and writes a PNG.
 #

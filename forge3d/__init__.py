@@ -1,7 +1,7 @@
 # forge3d — compatibility shim over forge3d_tpu.
 #
 # Users of the reference package import `forge3d as f3d`; this alias keeps
-# that spelling working against the TPU-native implementation. Every
+# that spelling working against the JAX implementation. Every
 # attribute resolves through forge3d_tpu's lazy export table, so the shim
 # stays complete as the implementation grows.
 

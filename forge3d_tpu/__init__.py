@@ -1,13 +1,13 @@
-# forge3d_tpu — a TPU-native (JAX/XLA/Pallas) rebuild of the forge3d
-# offline 3D map renderer: path-traced terrain and cartography.
+# forge3d_tpu — a JAX/XLA rebuild of the forge3d offline 3D map renderer:
+# path-traced terrain and cartography.
 #
-# The public API mirrors the reference's `forge3d` package surface
-# (/root/reference/python/forge3d/__init__.py) while the engine underneath is
-# a from-scratch TPU-first design: wgpu passes became jitted functions, WGSL
-# kernels became fused jnp / Pallas kernels, wavefront ray queues became
-# deterministic per-pixel sample loops, and frames tile-shard across chips
-# with jax.sharding.
+# The public API mirrors the reference's `forge3d` package surface while
+# the engine underneath is a from-scratch design: wgpu passes became
+# jitted functions, WGSL kernels became fused jnp programs, wavefront ray
+# queues became deterministic per-pixel sample loops, and frames shard
+# across devices with jax.sharding.
 
+from . import _jit_cache  # noqa: F401  (persistent compilation cache)
 from ._version import __version__  # noqa: F401
 
 from .errors import (  # noqa: F401
@@ -29,7 +29,6 @@ from .device import (  # noqa: F401
     engine_info,
     enumerate_adapters,
     has_gpu,
-    has_tpu,
     poison_context,
     report_device,
     try_ctx,

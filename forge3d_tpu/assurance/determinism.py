@@ -5,7 +5,7 @@
 # byte-exact SHA-256 of canonical renders per backend
 # (tests/goldens/determinism/*.sha256, scripts/check_determinism_hashes.py,
 # .github/workflows/determinism-matrix.yml) and refuses software adapters
-# in deterministic mode (src/core/gpu.rs:62-102). TPU translation: hashes
+# in deterministic mode (src/core/gpu.rs:62-102). Translation: hashes
 # are recorded per (platform, device_kind, topology) — the analogue of the
 # reference's per-backend golden variants — and `render_twice_check`
 # asserts run-to-run stability within one process.
@@ -34,7 +34,7 @@ def frame_hash(frame: np.ndarray) -> str:
 
 def topology_key() -> str:
     """Platform/topology id for per-topology golden variants
-    (cpu-8, tpu-v5e-1, ...)."""
+    (cpu-8, gpu-1, ...)."""
     import jax
 
     devs = jax.devices()

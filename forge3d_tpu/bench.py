@@ -1,5 +1,5 @@
 # forge3d_tpu/bench.py
-# Per-op benchmark harness: the reference bench contract, TPU-native.
+# Per-op benchmark harness: the reference bench contract, in JAX.
 #
 # Parity notes (reference behavior, not code): python/forge3d/bench.py
 # runs ONE named op per call in a warmup+timed loop and returns
@@ -11,11 +11,10 @@
 # renders the mapscene op with and without an active VT material set and
 # reports the delta (bench.py:337-374).
 #
-# TPU additions beyond the reference op set:
+# Additions beyond the reference op set:
 #   - "screen_terrain_rgba": the production screen-mode pipeline
 #     (TerrainRenderer camera_mode="screen") at the requested resolution,
-#     with real per-pass timings from the renderer — the op the 1080p
-#     perf evidence runs (PERF.md round 5).
+#     with real per-pass timings from the renderer.
 
 from __future__ import annotations
 

@@ -4,7 +4,7 @@
 # Parity notes (reference behavior, not code): the reference ships a GPU
 # F3DZ page decoder and proves CPU/GPU byte-identity per page
 # (src/codec/f3dz/gpu.rs, src/shaders/f3dz_decode.wgsl,
-# benches/f3dz_bench.rs). This is the TPU equivalent: streamed compressed
+# benches/f3dz_bench.rs). This is the device equivalent: streamed compressed
 # DEM tiles decode where they are consumed — the host parses the tiny
 # per-tile headers and frequency tables (and checks CRCs fail-closed,
 # like the other lanes), while the rANS entropy decode, escape

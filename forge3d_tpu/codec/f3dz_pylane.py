@@ -4,7 +4,7 @@
 #
 # Parity notes (reference behavior, not code): the reference proves its
 # CPU and GPU F3DZ decoders byte-identical per page
-# (src/codec/f3dz/mod.rs:1-12, benches/f3dz_bench.rs). The TPU build's
+# (src/codec/f3dz/mod.rs:1-12, benches/f3dz_bench.rs). This build's
 # equivalent evidence is this lane: same wire format, separately written
 # decode path, compared for exact equality in tests/test_codec (and usable
 # anywhere a no-native fallback is needed). Slow by design — clarity over

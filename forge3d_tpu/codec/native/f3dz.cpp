@@ -5,7 +5,7 @@
 //   /root/reference/src/codec/f3dz/{predict,rans,encode,decode,format,gpu}.rs
 //   (mod.rs:1-12) — predictor + rANS entropy coder, paged tiles, per-page
 //   CRC, fail-closed decode. This is an independent C++ implementation of
-//   the same contract for the TPU build's host runtime: quantize heights to
+//   the same contract for this build's host runtime: quantize heights to
 //   a caller-set error bound, MED (LOCO-I) prediction, zig-zag residuals,
 //   order-0 rANS with per-tile frequency tables, CRC32 per tile, decode
 //   refuses corrupt pages.

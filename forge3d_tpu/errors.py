@@ -1,5 +1,5 @@
 # forge3d_tpu/errors.py
-# Typed error hierarchy for the TPU-native forge3d framework.
+# Typed error hierarchy for the forge3d JAX framework.
 #
 # Parity notes (reference behavior, not code):
 #   - RenderError family: /root/reference/src/core/error.rs
@@ -20,14 +20,14 @@ class UploadError(RenderError):
 
 
 class DeviceError(RenderError):
-    """Device acquisition or execution failure (poisoned context, no TPU)."""
+    """Device acquisition or execution failure (poisoned context, no device)."""
 
 
 class MemoryBudgetExceeded(RenderError):
     """An allocation would exceed the enforced HBM budget.
 
     Mirrors the reference's 512 MiB host-visible budget policy
-    (src/util/memory_budget.rs:11-12) re-targeted at TPU HBM accounting.
+    (src/util/memory_budget.rs:11-12) re-targeted at device memory accounting.
     """
 
     def __init__(self, message: str, requested_bytes: int = 0, budget_bytes: int = 0):
@@ -66,6 +66,6 @@ class ConvergenceError(RenderError):
 class ContractViolation(RenderError):
     """A runtime value-safety contract on kernel outputs was violated.
 
-    TPU-native stand-in for the reference's shader-contract runtime asserts
+    Stand-in for the reference's shader-contract runtime asserts
     (src/terrain/renderer/runtime_contract.rs, src/verify/mod.rs).
     """

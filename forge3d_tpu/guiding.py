@@ -4,7 +4,7 @@
 #
 # Parity notes (reference behavior, not code): the reference exposes a
 # guiding module that accumulates a luminance histogram over direction
-# bins per spatial cell and importance-samples bounces from it. TPU-native:
+# bins per spatial cell and importance-samples bounces from it. Here:
 # the cache is a dense (cells, bins) array updated with scatter-adds and
 # sampled with the alias-free CDF inversion — all fused jnp; bins follow a
 # concentric octahedral mapping (uniform solid angle).

@@ -3,7 +3,7 @@
 #
 # Parity notes (reference behavior, not code): /root/reference/src/io/mod.rs
 # registers OBJ read/write, PLY read/write, STL write, glTF read (KHR
-# extensions per Cargo.toml:88). Host-side and TPU-independent; meshes feed
+# extensions per Cargo.toml:88). Host-side and device-independent; meshes feed
 # the SAH BVH (ops/bvh.py) and the mesh path tracer.
 
 from __future__ import annotations

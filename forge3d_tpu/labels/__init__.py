@@ -7,7 +7,7 @@
 # declutter.rs:159-318, optimal.rs), and screen-space projection with depth
 # occlusion + horizon fade. Python planner: python/forge3d/label_plan.py.
 #
-# TPU-native design: glyph SDF atlas baked host-side (PIL raster + exact
+# Design: glyph SDF atlas baked host-side (PIL raster + exact
 # euclidean distance transform), text composited analytically from the SDF
 # (bilinear sample + smoothstep threshold) — no raster pipeline needed.
 # Collision + declutter are host-side combinatorial code, as in the

@@ -4,10 +4,10 @@
 #
 # Parity notes (reference behavior, not code): the reference renders MSDF
 # text in a screen-space pass with halo + depth occlusion + horizon fade
-# (src/labels/mod.rs:1-12, text_overlay.wgsl). TPU-native: labels are
+# (src/labels/mod.rs:1-12, text_overlay.wgsl). Here: labels are
 # composited host-side (numpy) onto the rendered frame — label counts are
 # small (thousands), so per-glyph bilinear SDF sampling is cheap and keeps
-# the hot TPU path free of irregular work.
+# the hot device path free of irregular work.
 
 from __future__ import annotations
 

@@ -4,7 +4,7 @@
 #
 # Parity notes (reference behavior, not code): /root/reference/src/
 # lighting/ (light.rs:11-17 PyLight types; light_buffer/ with R2 sequence
-# frames; material.rs BRDF; ephemeris.rs NOAA solar). TPU-native: lights
+# frames; material.rs BRDF; ephemeris.rs NOAA solar). Here: lights
 # are a struct-of-arrays pytree consumed by fused jnp shading; the solar
 # ephemeris seam lives in sky.sun_position_at (Meeus).
 

@@ -9,7 +9,7 @@
 #   render → vector/raster overlay compositing → furniture → deterministic
 #   PNG; `cache=`/`certificate=` kwargs on render.
 #
-# The TPU build compiles the recipe onto TerrainRenderer (one fused device
+# This build compiles the recipe onto TerrainRenderer (one fused device
 # program) and composites overlays/furniture host-side; overlay vertices are
 # projected with the same camera the renderer uses, so overlays register
 # exactly with the terrain image.
@@ -638,7 +638,7 @@ class MapScene:
 
     # -- screen-mode terrain (reference default framing) --------------------
     def _render_screen_terrain(self, plan):
-        """Screen-mode terrain base through the TPU engine with
+        """Screen-mode terrain base through the JAX engine with
         reference-DERIVED parameters (forge3d_tpu.mapscene_screen):
         preset resolution, POM defaults, minimal IBL, spacing-consistent
         shadow world, terrain colormap — no fitted profile constants.
@@ -660,7 +660,7 @@ class MapScene:
     # path (terrain_pbr_pom.wgsl:4766-4830; fs_main -> shade_main).
     # Everything here is DERIVED from the recipe through the preset
     # resolution (mapscene_screen.derive_screen_params) and rendered by
-    # the TPU engine (terrain.screen.render_clipmap_scene) — no fitted
+    # the JAX engine (terrain.screen.render_clipmap_scene) — no fitted
     # profile constants, no color LUTs.
     def _render_clipmap_terrain(self, plan):
         from . import mapscene_screen as mss

@@ -1,7 +1,7 @@
 """Reference-derived screen-mode recipe rendering.
 
 This module routes MapScene's ``camera_mode="screen"`` terrain pass
-through the TPU engine (`forge3d_tpu.terrain.screen`) with every
+through the JAX engine (`forge3d_tpu.terrain.screen`) with every
 parameter DERIVED from the reference's own recipe pipeline — replacing
 the fitted numpy hillshade profile that previously backed the recipe
 parity board.
@@ -378,7 +378,7 @@ def derive_screen_params(recipe, dem) -> Dict[str, Any]:
 
 
 def render_screen_base(recipe, dem, *, out_size=None):
-    """Render the recipe's screen-mode terrain base through the TPU
+    """Render the recipe's screen-mode terrain base through the JAX
     engine and nearest-resize to the output size. Returns (H,W,4) u8."""
     from .terrain import screen as eng
 

@@ -9,7 +9,7 @@
 #   - Python surface: python/forge3d/mem.py:30-92 (budget policy get/set,
 #     memory_metrics dict)
 #
-# TPU-native design: JAX allocates HBM through XLA, so this tracker is a
+# Design: JAX allocates HBM through XLA, so this tracker is a
 # *ledger*, not an allocator. Render paths register their logical resources
 # (pyramids, accumulators, AOV planes) before materializing them; the policy
 # decides whether an over-budget registration raises (enforce) or records a
@@ -27,7 +27,7 @@ from .errors import MemoryBudgetExceeded
 #: Default tracked-resource budget. The reference enforces 512 MiB of
 #: host-visible memory; we keep the same default for the tracked working set
 #: so out-of-core machinery (tiling, streaming) is exercised at the same
-#: scale, even though TPU HBM is far larger.
+#: scale, even though device memory is far larger.
 MEMORY_BUDGET_CAP: int = 512 * 1024 * 1024
 
 _VALID_POLICIES = ("enforce", "warn", "off")

@@ -1,2 +1,2 @@
-# forge3d_tpu/ops — device compute kernels (jnp + Pallas).
+# forge3d_tpu/ops — device compute kernels (jnp / lax).
 from . import pyramid, rng, shading, tonemap, traversal  # noqa: F401

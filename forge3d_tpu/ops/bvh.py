@@ -1,16 +1,16 @@
 # forge3d_tpu/ops/bvh.py
-# Triangle-mesh BVH: host-side binned-SAH build + TPU-native stackless
+# Triangle-mesh BVH: host-side binned-SAH build + stackless device
 # traversal.
 #
 # Parity notes (reference behavior, not code):
 #   - CPU binned SAH build + refit: /root/reference/src/accel/sah_cpu.rs
 #   - GPU LBVH (morton/radix-sort/link/refit): src/accel/lbvh_gpu.rs — on
-#     TPU a host SAH build wins: builds are per-scene-change (rare), the
+#     this engine a host SAH build wins: builds are per-scene-change (rare), the
 #     quality matters for traversal (every frame), and the flattened arrays
 #     upload once.
 #   - unified builder with CPU fallback: src/accel/mod.rs:31-60.
 #
-# TPU-native design: the tree is flattened depth-first and *threaded* —
+# Design: the tree is flattened depth-first and *threaded* —
 # every node stores `miss_link` (where to go when its AABB is not hit; the
 # DFS successor skipping the subtree). Traversal is then a single
 # lax.while_loop with per-ray state = one node index: hit an interior node

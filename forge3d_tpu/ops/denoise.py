@@ -8,7 +8,7 @@
 #   albedo/normal/depth AOVs via per-pixel weights
 #   w = w_color * w_albedo * w_normal * w_depth, each exp(-dist/sigma).
 #
-# TPU-native: each iteration is 25 shifted adds (5x5 à-trous kernel) over
+# Here: each iteration is 25 shifted adds (5x5 à-trous kernel) over
 # the whole image — pure elementwise math that XLA fuses; no gather.
 
 from __future__ import annotations
@@ -101,9 +101,9 @@ def svgf_denoise(color, aovs: dict, iterations: int = 5):
 
 
 def oidn_denoise(color, **kwargs):
-    """OIDN is unavailable on TPU hosts; fail closed with a typed error so
+    """OIDN is not bundled with this build; fail closed with a typed error so
     callers can fall back (reference: denoise_oidn.py raises when the
     library is missing)."""
     raise NotImplementedError(
-        "OIDN is not available in the TPU build; use atrous_denoise/svgf_denoise"
+        "OIDN is not available in this build; use atrous_denoise/svgf_denoise"
     )

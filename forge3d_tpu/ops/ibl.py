@@ -5,7 +5,7 @@
 # Parity notes (reference behavior, not code): /root/reference/src/core/
 # ibl/ + ibl*.wgsl implement the standard split-sum IBL pipeline
 # (equirect to cubemap, roughness-prefiltered specular mips, BRDF
-# integration LUT, diffuse irradiance) with quality tiers. TPU-native:
+# integration LUT, diffuse irradiance) with quality tiers. Here:
 # each stage is a deterministic jnp program over direction grids;
 # importance sampling uses a fixed Hammersley set so bakes are
 # reproducible byte-for-byte.

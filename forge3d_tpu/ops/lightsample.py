@@ -9,7 +9,7 @@
 #   sample per camera sample drawn from the light set, weighted by
 #   1 / selection_pdf.
 #
-# TPU-native: the table is built host-side (numpy, deterministic); the
+# Here: the table is built host-side (numpy, deterministic); the
 # per-pixel draw is two array lookups from (L,)-sized tables — tiny
 # gathers that XLA handles fine at any batch shape. Light-point sampling
 # evaluates every light TYPE's formula branchlessly and selects by the

@@ -1,28 +1,24 @@
 # forge3d_tpu/ops/polarscan.py
 # Polar primary-visibility scan: per-pixel heightfield ray casting without
-# per-ray gathers.
+# a per-ray marching loop.
 #
 # Reference behavior being replaced (not copied): the primary camera-ray
-# pass of the terrain PT (/root/reference/src/shaders/
-# hybrid_terrain_traversal.wgsl:193-314 quadtree descent). Per-ray descent
-# is gather-bound on TPU (PERF.md); this module exploits that ALL primary
-# rays share one origin:
+# pass of the terrain PT (reference shader hybrid_terrain_traversal.wgsl:
+# 193-314, quadtree descent). Instead of marching each ray, this module
+# exploits that ALL primary rays share one origin:
 #
 #   * every ray lies in a vertical plane through the camera, indexed by its
 #     horizontal azimuth tangent tan(beta) relative to the camera's forward;
 #   * the intersection of that plane with the height surface is a 1D height
 #     profile, sampled where the plane crosses each camera-aligned grid row
-#     (a per-row 1D interpolation = small batched matmuls on the MXU);
+#     (a per-row 2-tap lerp);
 #   * along a profile, the running maximum M(k) of the sample elevation
 #     tangents is monotone, so the FIRST crossing of a ray at elevation
 #     tangent q is also the first k with M(k) >= q — first-hit for a whole
 #     column of rays becomes one cumulative max plus a first-crossing
-#     indicator contraction (MXU), no marching loop at all;
+#     indicator contraction, no marching loop at all;
 #   * the (tan(beta), q) "polar" radiance image is warped to the screen once
-#     per resolve with a single structured bilinear resample.
-#
-# Everything is rolls / interpolation matmuls / cumulative max — the shapes
-# XLA tiles well onto the MXU/VPU.
+#     per resolve with a per-row 2-tap azimuth resample.
 
 from __future__ import annotations
 
@@ -52,8 +48,8 @@ class PolarStatic:
     elevation tangent. For a roll-free camera, cu = ndc_x * hw exactly and
     cv(y) = fv + y * uvhh, so a polar row maps 1:1 onto a (supersampled)
     screen row and the final screen resolve needs only a per-row 1D
-    azimuth resample (a hat-weight matmul) plus a vertical box average —
-    no gathers. A ray's elevation comparison uses the REDUCED tangent
+    azimuth resample plus a vertical box average. A ray's elevation
+    comparison uses the REDUCED tangent
     Q(y) = dy(y)/cv(y) = (h_hit - cam_y)/(horizontal-forward distance),
     which is azimuth-independent, so the first-crossing contraction is
     unchanged in structure.
@@ -126,7 +122,7 @@ def plan_polar(*, width: int, height: int, fov_y_deg: float,
     if float(cv.min()) < 0.05:
         raise ValueError(
             "frustum contains near-vertical rays; polar scan unsupported "
-            "(fall back to traversal='dda'/'mxu')")
+            "(fall back to traversal='dda')")
     tanb = cu / cv
     t_margin = 0.02 * (tanb.max() - tanb.min() + 1e-6)
     t_lo, t_hi = float(tanb.min() - t_margin), float(tanb.max() + t_margin)
@@ -176,15 +172,18 @@ def polar_directions(ps: PolarStatic, ja=0.0, je=0.0):
     return dx, dy, dz, t, qr
 
 
-def extract_profiles(rotbuf, ps: PolarStatic, *, xi=0.0, ja=0.0,
-                     chunk: int = 128):
+def extract_profiles(rotbuf, ps: PolarStatic, *, xi=0.0, ja=0.0):
     """Sample per-azimuth profiles from the rotated channel buffer.
 
     rotbuf: (n_v, n_u, C) — channel 0 MUST be world height (used for the
     out-of-range mask). xi in [0, 1): radial phase jitter (fraction of a
     row); ja in [-0.5, 0.5): azimuth grid jitter (sub-texel).
     Radial sample k lives at grid row k0 + k + 1 + xi, i.e. at horizontal
-    offset (k0 + k + 1 + xi - cam_iv) rows past the camera.
+    offset (k0 + k + 1 + xi - cam_iv) rows past the camera; its column
+    position p is read as a 2-tap gather + lerp (the hat-weight
+    interpolant restricted to its two non-zero taps, so a tap outside the
+    grid contributes nothing). Pure elementwise f32: no matrix product,
+    so heights keep full precision on every backend.
     Returns profiles (K, A, C).
     """
     n_v, n_u, C = rotbuf.shape
@@ -193,34 +192,29 @@ def extract_profiles(rotbuf, ps: PolarStatic, *, xi=0.0, ja=0.0,
     # radial row lerp commutes with the column interpolation
     src = (1.0 - xi) * jax.lax.dynamic_slice_in_dim(rotbuf, ps.k0 + 1, K, 0) \
         + xi * jax.lax.dynamic_slice_in_dim(rotbuf, ps.k0 + 2, K, 0)
+    koff = jnp.arange(K, dtype=_F32) + (ps.k0 + 1.0 - ps.cam_iv) + xi
+    p = ps.cam_iu + koff[:, None] * t[None, :]               # (K, A)
+    prof = _lerp_taps(src, jnp.clip(p, -1.0, float(n_u)), n_u)
+    # out-of-grid samples must read as "no terrain": mask the height
+    # channel to -1e30 (other channels are only consumed where hit)
+    oob = (p < 0.0) | (p > n_u - 1)
+    h = jnp.where(oob, _NEG, prof[..., 0])
+    return jnp.concatenate([h[..., None], prof[..., 1:]], axis=-1)
 
-    iota_j = jnp.arange(n_u, dtype=_F32)
-    base = ps.k0 + 1.0 - ps.cam_iv
 
-    def do_chunk(args):
-        src_c, k_idx = args
-        # u position per (k, a): cam_iu + koff * tan(beta)
-        koff = k_idx.astype(_F32) + base + xi
-        p = ps.cam_iu + koff[:, None] * t[None, :]          # (kc, A)
-        w = jnp.maximum(
-            0.0, 1.0 - jnp.abs(p[:, None, :] - iota_j[None, :, None]))
-        prof = jnp.einsum("kjc,kja->kac", src_c, w,
-                          preferred_element_type=_F32)
-        oob = (p < 0.0) | (p > n_u - 1)
-        # out-of-grid samples must read as "no terrain": mask the height
-        # channel to -1e30 (other channels are only consumed where hit)
-        h = jnp.where(oob, _NEG, prof[..., 0])
-        return jnp.concatenate([h[..., None], prof[..., 1:]], axis=-1)
-
-    n_chunks = (K + chunk - 1) // chunk
-    Kp = n_chunks * chunk
-    pad = Kp - K
-    src_p = jnp.pad(src, ((0, pad), (0, 0), (0, 0)))
-    k_ids = jnp.arange(Kp, dtype=jnp.int32).reshape(n_chunks, chunk)
-    prof = jax.lax.map(
-        do_chunk, (src_p.reshape(n_chunks, chunk, n_u, C), k_ids))
-    prof = prof.reshape(Kp, A, C)[:K]
-    return prof
+def _lerp_taps(src, pos, n: int):
+    """Linear interpolation of src (R, n, C) at positions pos (R, P)
+    along axis 1: taps floor(pos) and floor(pos) + 1 with weights 1 - f
+    and f; taps outside [0, n) get weight 0. Returns (R, P, C)."""
+    j0f = jnp.floor(pos)
+    f = pos - j0f
+    j0 = j0f.astype(jnp.int32)
+    j1 = j0 + 1
+    w0 = jnp.where((j0 >= 0) & (j0 < n), 1.0 - f, 0.0)
+    w1 = jnp.where((j1 >= 0) & (j1 < n), f, 0.0)
+    g0 = jnp.take_along_axis(src, jnp.clip(j0, 0, n - 1)[..., None], axis=1)
+    g1 = jnp.take_along_axis(src, jnp.clip(j1, 0, n - 1)[..., None], axis=1)
+    return w0[..., None] * g0 + w1[..., None] * g1
 
 
 def profile_hit_tangents(h_prof, ps: PolarStatic, xi=0.0, ja=0.0):
@@ -248,7 +242,7 @@ def profile_hit_tangents(h_prof, ps: PolarStatic, xi=0.0, ja=0.0):
 
 
 def synthesize_polar(values, q_prof, miss_values, ps: PolarStatic,
-                     je=0.0, a_chunk: int = 128, mxu_dtype=None):
+                     je=0.0, a_chunk: int = 128):
     """First-hit contraction: polar(e, a, c) = values at the first profile
     sample whose running-max REDUCED tangent crosses the row tangent Q(e);
     rays with no crossing get miss_values.
@@ -256,18 +250,12 @@ def synthesize_polar(values, q_prof, miss_values, ps: PolarStatic,
     values:      (K, A, C) per-profile-sample shaded values
     q_prof:      (K, A) sample reduced elevation tangents
     miss_values: (E, A, C) environment values
-    mxu_dtype:   optional storage dtype for the crossing-indicator tensor
-                 and values operand of the contraction (e.g. jnp.bfloat16
-                 on TPU halves the HBM traffic of the dominant (E, K, A)
-                 indicator; indicators are exactly representable).
     Returns (E, A, C).
     """
     K, A, C = values.shape
     E = ps.e_count
     M = jax.lax.cummax(q_prof, axis=0)                    # (K, A) monotone
     q_e = ps.q_rows(je)                                   # (E,) reduced
-    idt = _F32 if mxu_dtype is None else mxu_dtype
-    vals = values if mxu_dtype is None else values.astype(mxu_dtype)
 
     # Sub-row crossing interpolation via a SOFT cumulative indicator: the
     # true intersection lies between radial rows k and k+1 when
@@ -287,31 +275,28 @@ def synthesize_polar(values, q_prof, miss_values, ps: PolarStatic,
     m_rden = 1.0 / jnp.maximum(m_next - M, 1e-9)    # reciprocal: the
     # (E, K, A) indicator then needs one multiply, not a divide
 
-    q_e_i = q_e.astype(idt)
-
     def do_chunk(args):
         m_c, dn_c, v_c = args                 # (K, Ac), (K, Ac), (K, Ac, C)
-        # the (E, K, A) indicator arithmetic runs in the storage dtype
-        # (bf16 on TPU): the crossing fraction only positions a sub-row
-        # lerp, so ~0.4% relative error is far below the converged gates,
-        # while the elementwise work on the dominant tensor halves
-        alpha = jnp.clip(
-            (m_c.astype(idt)[None, :, :] - q_e_i[:, None, None])
-            * dn_c.astype(idt)[None, :, :],
-            jnp.asarray(0.0, idt), jnp.asarray(1.0, idt))  # (E, K, Ac)
+        alpha = jnp.clip((m_c[None, :, :] - q_e[:, None, None])
+                         * dn_c[None, :, :], 0.0, 1.0)    # (E, K, Ac)
         cross = alpha - jnp.concatenate(
-            [jnp.zeros((E, 1, alpha.shape[2]), idt), alpha[:, :-1]],
+            [jnp.zeros((E, 1, alpha.shape[2]), _F32), alpha[:, :-1]],
             axis=1)
+        # HIGHEST: the values carry hit distance and normals, which a TF32
+        # product (~10 mantissa bits) would round visibly. (bf16 storage
+        # of both operands ran the stage 1.55x faster on an H100 and
+        # rounds depth to 8 bits — PERF.md.)
         out = jnp.einsum("eka,kac->eac", cross, v_c,
+                         precision=jax.lax.Precision.HIGHEST,
                          preferred_element_type=_F32)
-        hit_any = alpha[:, -1, :].astype(_F32)            # (E, Ac)
+        hit_any = alpha[:, -1, :]                         # (E, Ac)
         return out, hit_any
 
     n_chunks = (A + a_chunk - 1) // a_chunk
     Ap = n_chunks * a_chunk
     m_p = jnp.pad(m_next, ((0, 0), (0, Ap - A)))
     dn_p = jnp.pad(m_rden, ((0, 0), (0, Ap - A)), constant_values=1.0)
-    v_p = jnp.pad(vals, ((0, 0), (0, Ap - A), (0, 0)))
+    v_p = jnp.pad(values, ((0, 0), (0, Ap - A), (0, 0)))
     out, hit_any = jax.lax.map(
         do_chunk,
         (m_p.reshape(K, n_chunks, a_chunk).transpose(1, 0, 2),
@@ -323,16 +308,13 @@ def synthesize_polar(values, q_prof, miss_values, ps: PolarStatic,
 
 
 def warp_to_screen(polar, ps: PolarStatic, *, width: int, height: int,
-                   fov_y_deg: float = 0.0, right=None, up=None, fwd=None,
-                   supersample: int = 2, row_chunk: int = 32):
+                   supersample: int = 2):
     """Resolve the screen-aligned polar image to the screen.
 
     polar: (E, A, C) -> (height, width, C). Vertical: polar rows ARE
     supersampled screen rows (ps.row_ss per pixel row) — a box average.
     Horizontal: per-row 1D azimuth resample at `supersample` box-filtered
-    sub-positions, evaluated as chunked hat-weight matmuls (MXU; no
-    gathers). The legacy fov/right/up/fwd arguments are accepted and
-    ignored — all geometry lives in PolarStatic now.
+    sub-positions, each a 2-tap gather + lerp along the azimuth axis.
     """
     E, A, C = polar.shape
     if height * ps.row_ss != E - ps.e_pad:
@@ -342,35 +324,15 @@ def warp_to_screen(polar, ps: PolarStatic, *, width: int, height: int,
     ss = max(int(supersample), 1)
     ndc_rows = 1.0 - (np.arange(E, dtype=np.float64) + 0.5) * ps.y_step
     cv_rows = jnp.asarray(np.maximum(ps.fv + ndc_rows * ps.uvhh, 0.02), _F32)
-    # sub-pixel ndc-x positions folded into the weights (box of hats)
+    # sub-pixel ndc-x positions (box filter over `ss` sub-positions)
     sub = (np.arange(ss, dtype=np.float64) + 0.5) / ss
     ndc_x = ((np.arange(width, dtype=np.float64)[:, None] + sub[None, :])
              / width) * 2.0 - 1.0                          # (W, ss)
     ndc_x = jnp.asarray(ndc_x, _F32)
-    iota_a = jnp.arange(A, dtype=_F32)
-
-    n_chunks = (E + row_chunk - 1) // row_chunk
-    Ep = n_chunks * row_chunk
-    pol_p = jnp.pad(polar, ((0, Ep - E), (0, 0), (0, 0)))
-    cv_p = jnp.pad(cv_rows, (0, Ep - E), constant_values=1.0)
-
-    def do_chunk(args):
-        pol_c, cv_c = args                                 # (R, A, C), (R,)
-        # a_f(row, x, sub): azimuth position of the sub-pixel ray
-        tanb = ndc_x[None, :, :] * (ps.hw / cv_c)[:, None, None]
-        a_f = (tanb - ps.t_lo) / ps.t_step - 0.5
-        a_f = jnp.clip(a_f, 0.0, A - 1.0)                  # (R, W, ss)
-        # hat weights vs the azimuth iota, box-summed over sub-positions
-        w = jnp.maximum(
-            0.0, 1.0 - jnp.abs(a_f[:, None, :, :] - iota_a[None, :, None,
-                                                           None]))
-        w = w.sum(axis=-1) * (1.0 / ss)                    # (R, A, W)
-        return jnp.einsum("raw,rac->rwc", w, pol_c,
-                          preferred_element_type=_F32)
-
-    out = jax.lax.map(
-        do_chunk,
-        (pol_p.reshape(n_chunks, row_chunk, A, C),
-         cv_p.reshape(n_chunks, row_chunk)))
-    out = out.reshape(Ep, width, C)[:E - ps.e_pad]
+    # a_f(row, x, sub): azimuth position of the sub-pixel ray
+    tanb = ndc_x[None, :, :] * (ps.hw / cv_rows)[:, None, None]
+    a_f = jnp.clip((tanb - ps.t_lo) / ps.t_step - 0.5, 0.0, A - 1.0)
+    out = _lerp_taps(polar, a_f.reshape(E, width * ss), A)
+    out = out.reshape(E, width, ss, C).sum(axis=2) * (1.0 / ss)
+    out = out[:E - ps.e_pad]
     return out.reshape(height, ps.row_ss, width, C).mean(axis=1)

@@ -5,9 +5,9 @@
 # Parity notes (reference behavior, not code): the reference implements
 # these as WGSL passes (/root/reference/src/core/{bloom,dof,taa}.rs,
 # src/passes/ ssao/ssgi/ssr, bloom_*.wgsl, dof.wgsl, taa.wgsl,
-# ltc_*.rs). TPU-native: each effect is a pure jnp function over image
+# ltc_*.rs). Here: each effect is a pure jnp function over image
 # pytrees — XLA fuses the elementwise chains, and separable convolutions
-# map onto the VPU; no render-target plumbing. Rect area lights use the
+# map onto vector units; no render-target plumbing. Rect area lights use the
 # representative-point approximation (Karis 2013) rather than an LTC LUT —
 # same visual contract (soft specular from rectangles), no 64kB table.
 #

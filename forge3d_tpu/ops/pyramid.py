@@ -11,7 +11,7 @@
 #   - each coarser level reduces 2x2 children with edge-clamped sampling so
 #     non-square pyramids collapse an axis early without losing coverage.
 #
-# TPU-native design: instead of a texture mip chain we flatten every level
+# Design: instead of a texture mip chain we flatten every level
 # into one contiguous array (finest first) with per-level offsets, so the
 # traversal loop does a single dynamic gather per step regardless of the
 # lane's current level. The build itself is a host-side numpy reduction (it

@@ -13,7 +13,7 @@
 #     target-pdf re-evaluation at the receiver (directional lights: selection
 #     probability with facing test): src/shaders/pt_restir_spatial.wgsl
 #
-# TPU-native design: a reservoir buffer is a NamedTuple of (H*W,) arrays
+# Design: a reservoir buffer is a NamedTuple of (H*W,) arrays
 # (SoA), every pass is a fused elementwise/gather program. The spatial pass's
 # per-candidate sequential stream (9 candidates) unrolls into a fori_loop —
 # still data-parallel across pixels. The terrain reference only uses

@@ -11,7 +11,7 @@
 #     (distance, material_id); hybrid traversal couples with mesh BVH
 #     (src/sdf/hybrid.rs).
 #
-# TPU-native design: the CSG tree is flattened post-order into an
+# Design: the CSG tree is flattened post-order into an
 # instruction tape (SoA arrays). Evaluation runs the tape once per point
 # batch with a fixed-size value stack held as a (stack_depth, ...) array —
 # no recursion, no dynamic control flow, identical work across lanes, so

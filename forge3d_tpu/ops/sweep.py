@@ -1,21 +1,21 @@
 # forge3d_tpu/ops/sweep.py
-# Directional shadow-line sweeps over a heightfield — the TPU-native
-# reformulation of per-ray occlusion tracing.
+# Directional shadow-line sweeps over a heightfield — a reformulation of
+# per-ray occlusion tracing.
 #
 # Reference behavior being replaced (not copied): the terrain PT estimator's
 # sun-shadow and env-visibility rays (/root/reference/src/shaders/
 # hybrid_terrain_traversal.wgsl:318-384 — sun NEE occlusion + one
 # cosine-sampled env visibility ray per camera sample). Per-ray heightfield
-# marching is gather-bound on TPU (PERF.md round 1: ~100-150M random
-# element gathers/s caps any per-step-gather traversal at ~1 Mray/s).
+# marching does one data-dependent table lookup per step per ray, and
+# one visibility ray per texel per direction.
 #
-# TPU-native redesign: for a FIXED direction w, occlusion of *every* texel
+# Redesign: for a FIXED direction w, occlusion of *every* texel
 # at once is a classic shadow-line propagation — march the grid along the
 # light-travel direction carrying the running shadow height
 #       z[i] = max(h[i], shift(z[i-1], tau) - delta)
 # where `shift` is a fractional lateral move (lerp of two static rolls) and
 # `delta` the ray's vertical drop per row. No gathers anywhere: rolls,
-# lerps, max — pure VPU work, O(grid) per direction for ALL texels.
+# lerps, max — pure elementwise work, O(grid) per direction for ALL texels.
 # The env-visibility integral
 #       E_sky(x) = int env(w) V(x,w) max(0, n.w)/pi dw
 # (exactly the expectation the reference estimates with per-pixel cosine
@@ -39,6 +39,10 @@ from .shading import EnvMap, env_radiance
 
 _F32 = jnp.float32
 _NEG = jnp.float32(-1.0e30)
+
+#: Rows per unrolled step of the propagation scan (the per-row body is
+#: small B x U vector work, so per-iteration overhead is visible).
+SCAN_UNROLL = 8
 
 
 # ---------------------------------------------------------------------------
@@ -164,16 +168,17 @@ def _propagate_group(h, du, dv, invn, tau, delta, w_u, w_v, w_y, env_w,
                 - w_u[:, None] * du_row[None, :]
                 - w_v[:, None] * dv_row[None, :]) * invn_row[None, :]
         contrib = lit * jnp.maximum(cosb, 0.0)
+        # HIGHEST: the bin sum is the sky irradiance itself; a TF32
+        # product would round it to ~10 mantissa bits (B x U x 3, tiny)
         e_row = jnp.einsum("bu,bc->uc", contrib, env_w,
+                           precision=jax.lax.Precision.HIGHEST,
                            preferred_element_type=_F32)
         z_new = jnp.maximum(h_row[None, :], z_in)
         return (z_new, h_row), (e_row, z_in[0])
 
     z0 = jnp.full((B, U), _NEG, _F32)
-    # unroll: the per-step body is small (B x U vector work), so loop
-    # overhead dominates on TPU without it
     _, (e_sky, z_in0) = jax.lax.scan(
-        step, (z0, h[0]), (h, du, dv, invn), unroll=8)
+        step, (z0, h[0]), (h, du, dv, invn), unroll=SCAN_UNROLL)
     return e_sky, z_in0
 
 

@@ -6,7 +6,7 @@
 #   src/path_tracing/wavefront/instances.rs — TLAS instances referencing
 #   BLAS descriptors with per-instance object<->world transforms.
 #
-# TPU-first design: instance counts in cartographic scenes are small
+# Design: instance counts in cartographic scenes are small
 # (buildings batches, repeated landmark meshes), so the instance loop is a
 # STATIC unroll — each instance's rays transform into object space
 # (direction left unnormalized so the hit parameter t stays world-scaled)

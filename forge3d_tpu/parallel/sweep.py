@@ -1,10 +1,10 @@
 # forge3d_tpu/parallel/sweep.py
 # Multi-chip scaling of the flagship sweep renderer: the converged render's
 # jittered FRAMES shard across the device mesh (they are embarrassingly
-# parallel), the polar accumulator psums over ICI, and the screen resolve
+# parallel), the polar accumulator psums across devices, and the screen resolve
 # runs replicated. This is the sweep-engine counterpart of the per-ray
 # tile sharding in parallel/tiles.py (SURVEY §2.8: frame/tile
-# decomposition -> shard_map over an ICI mesh, gather at writeout).
+# decomposition -> shard_map over a device mesh, gather at writeout).
 #
 # Reference behavior being scaled (not copied): the converged terrain PT
 # accumulation loop of /root/reference/src/path_tracing/hybrid_compute/
@@ -13,9 +13,38 @@
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 
 from .mesh import TILE_AXIS, frame_mesh, replicated_sharding
+
+
+@functools.lru_cache(maxsize=8)
+def _sharded_accum(frame_raw, mesh, env_specs):
+    """The jitted frame-sharded accumulation for one pipeline and mesh.
+    Cached so repeat renders reuse the traced and compiled program."""
+    import jax
+    from jax.sharding import PartitionSpec as P
+
+    def local(hgt, h_rot, du, dv, env_arg, lc, albedo, shadow_eps,
+              keys_local):
+        acc = frame_raw(hgt, h_rot, du, dv, env_arg, lc, albedo, shadow_eps,
+                        keys_local[0])
+        return jax.lax.psum(acc, TILE_AXIS)
+
+    # check_vma=False: the propagation scan's carry starts from the
+    # (replicated) height row and becomes device-varying once the
+    # per-device jitter keys enter — legal here (the psum collects the
+    # varying results), but the static varying-axis checker can't see
+    # that, so run in all-manual mode.
+    return jax.jit(jax.shard_map(
+        local, mesh=mesh,
+        in_specs=(P(), P(), P(), P(), env_specs, P(), P(), P(),
+                  P(TILE_AXIS)),
+        out_specs=P(),
+        check_vma=False,
+    ))
 
 
 def render_sweep_sharded(desc, n_frames: int, mesh=None):
@@ -76,31 +105,8 @@ def render_sweep_sharded(desc, n_frames: int, mesh=None):
         mesh, P(TILE_AXIS)))
 
     env_specs = jax.tree_util.tree_map(lambda _: P(), env)
-
-    @jax.jit
-    def sharded_accum(hgt, h_rot, du, dv, env_arg, lc, albedo, shadow_eps,
-                      keys):
-        def local(hgt, h_rot, du, dv, env_arg, lc, albedo, shadow_eps,
-                  keys_local):
-            acc = frame_fn.raw(hgt, h_rot, du, dv, env_arg, lc, albedo,
-                               shadow_eps, keys_local[0])
-            return jax.lax.psum(acc, TILE_AXIS)
-
-        # check_vma=False: the propagation scan's carry starts from the
-        # (replicated) height row and becomes device-varying once the
-        # per-device jitter keys enter — legal here (the psum collects the
-        # varying results), but the static varying-axis checker can't see
-        # that, so run in all-manual mode.
-        return jax.shard_map(
-            local, mesh=mesh,
-            in_specs=(P(), P(), P(), P(), env_specs, P(), P(), P(),
-                      P(TILE_AXIS)),
-            out_specs=P(),
-            check_vma=False,
-        )(hgt, h_rot, du, dv, env_arg, lc, albedo, shadow_eps, keys)
-
-    acc = sharded_accum(hgt, h_rot, du, dv, env, lc, albedo, shadow_eps,
-                        keys)
+    acc = _sharded_accum(frame_fn.raw, mesh, env_specs)(
+        hgt, h_rot, du, dv, env, lc, albedo, shadow_eps, keys)
     packed = resolve(acc / jnp.float32(n_frames),
                      jnp.asarray(desc.exposure, jnp.float32))
     return ts._unpack_render(desc, np.asarray(packed), n_frames,

@@ -4,10 +4,10 @@
 #
 # Reference parallelism being replaced: `iter_tiles` host tiling + per-sample
 # GPU batches (/root/reference/python/forge3d/path_tracing.py:618,
-# offline.rs:1569). On TPU the tile grid IS the sharding: every chip owns a
+# offline.rs:1569). The tile grid IS the sharding: every device owns a
 # contiguous row band of the frame, traversal tables are replicated (read-
 # only), and the only cross-chip traffic is the final gather at writeout
-# plus max/psum reductions for convergence metrics — all riding ICI.
+# plus max/psum reductions for convergence metrics.
 
 from __future__ import annotations
 

@@ -5,7 +5,7 @@
 # Parity notes (reference behavior, not code): /root/reference/src/
 # pointcloud/ (mod.rs:1-13) parses COPC/EPT/LAS(LAZ), traverses an octree
 # by screen-space error, and renders instanced points with eye-dome
-# lighting. TPU-native: points render by splatting into a depth-tested
+# lighting. Here: points render by splatting into a depth-tested
 # image with jnp scatter ops (no raster pipeline); EDL is a screen-space
 # depth filter. LAZ decompression needs an external codec and is gated
 # (LazUnsupported) like other optional deps.
@@ -351,7 +351,7 @@ def render_points(width: int, height: int, positions, cam, *,
                   background=(12, 16, 24, 255)) -> np.ndarray:
     """Depth-tested point splat render + optional eye-dome lighting.
 
-    TPU-native: project all points, z-buffer via np.minimum.at scatter
+    Here: project all points, z-buffer via np.minimum.at scatter
     (deterministic), EDL = depth-difference shading pass.
     """
     from .camera import PinholeCamera

@@ -7,7 +7,7 @@
 # building blocks, mirrored bit-for-bit in WGSL (dd_harness.wgsl), plus
 # `dd_selftest` error-bound verification over large random vectors
 # (CHANGELOG 1.34.0: add 2.39/3 u^2, mul 5.63/7, div 5.92/15, sqrt 3.34/15)
-# and `dd_jitter_demo` showing f64-scale camera anchoring. TPU-native: the
+# and `dd_jitter_demo` showing f64-scale camera anchoring. Here: the
 # same algorithms in jnp run on-device; XLA must not re-associate, so all
 # kernels force explicit operation order via jnp primitives (safe: XLA
 # does not re-associate f32 adds across data dependencies).

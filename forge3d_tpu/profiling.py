@@ -3,17 +3,18 @@
 # Parity notes (reference behavior, not code): the reference's GPU timing
 # layer (src/core/gpu_timing.rs:1-15) provides double-buffered timestamp
 # scopes plus RenderDoc/Nsight markers, surfaced through bench.py and
-# certificates. TPU-native equivalents: `jax.profiler` traces (viewable
-# in TensorBoard/XProf), `jax.named_scope` annotations on render phases,
-# and wall-clock scopes with forced-readback sync for per-pass numbers
-# (the discipline PERF.md documents). Certificates record pass timings
-# via assurance.certificate.record_pass.
+# certificates. Equivalents here: `jax.profiler` traces (viewable in
+# TensorBoard/XProf), `jax.named_scope` annotations on render phases, and
+# wall-clock scopes that end by blocking on the scope's own device
+# outputs (JAX dispatch is asynchronous, so a timer that does not wait on
+# them measures the enqueue). Certificates record pass timings via
+# assurance.certificate.record_pass.
 
 from __future__ import annotations
 
 import contextlib
 import time
-from typing import Dict, Iterator, List, Optional
+from typing import Any, Dict, Iterator, List, Optional
 
 __all__ = ["trace", "annotate", "Timer", "device_sync",
            "profile_report"]
@@ -24,7 +25,7 @@ def trace(logdir: str, *, create_perfetto_link: bool = False) -> Iterator[None]:
     """Capture a jax.profiler trace of the enclosed block.
 
     The trace lands under `logdir` (open with TensorBoard's profile
-    plugin / XProf; on TPU it includes per-HLO timing and memory).
+    plugin / XProf; on an accelerator it includes per-kernel timing).
     """
     import jax
 
@@ -46,25 +47,33 @@ def annotate(name: str) -> Iterator[None]:
         yield
 
 
-def device_sync() -> None:
-    """Block until all dispatched device work completes (the forced-
-    readback discipline: a scalar transfer on every live device)."""
+def device_sync(outputs: Any) -> Any:
+    """Block until `outputs` (any pytree of arrays) are computed on the
+    device, and return them. Device errors propagate."""
     import jax
 
-    for d in jax.devices():
-        try:
-            jax.device_put(0.0, d).block_until_ready()
-        except Exception:
-            pass
+    return jax.block_until_ready(outputs)
+
+
+class _Scope:
+    """Handle yielded by Timer.scope: `done(x)` registers the scope's
+    device outputs, which the timer blocks on before stopping the clock."""
+
+    def __init__(self):
+        self.outputs: list = []
+
+    def done(self, outputs: Any) -> Any:
+        self.outputs.append(outputs)
+        return outputs
 
 
 class Timer:
-    """Wall-clock pass timer with device sync at the edges.
+    """Wall-clock pass timer that waits for each scope's device outputs.
 
     >>> t = Timer()
-    >>> with t.scope("prepare"): ...
-    >>> with t.scope("render"): ...
-    >>> t.timings_ms  # {"prepare": ..., "render": ...}
+    >>> with t.scope("render") as s:
+    ...     img = s.done(render(...))
+    >>> t.timings_ms  # {"render": ...}
     """
 
     def __init__(self, sync: bool = True):
@@ -73,19 +82,16 @@ class Timer:
         self._order: List[str] = []
 
     @contextlib.contextmanager
-    def scope(self, name: str) -> Iterator[None]:
-        if self.sync:
-            device_sync()
+    def scope(self, name: str) -> Iterator[_Scope]:
+        handle = _Scope()
         t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if self.sync:
-                device_sync()
-            dt = (time.perf_counter() - t0) * 1000.0
-            self.timings_ms[name] = self.timings_ms.get(name, 0.0) + dt
-            if name not in self._order:
-                self._order.append(name)
+        yield handle
+        if self.sync:
+            device_sync(handle.outputs)
+        dt = (time.perf_counter() - t0) * 1000.0
+        self.timings_ms[name] = self.timings_ms.get(name, 0.0) + dt
+        if name not in self._order:
+            self._order.append(name)
 
     def record_to_certificate(self, capture=None) -> None:
         """Attach the collected pass timings to the active render
@@ -111,18 +117,17 @@ def profile_report(fn, *args, repeats: int = 3,
     """Run `fn` under timing (and optionally a jax.profiler trace).
 
     Returns {"p50_ms", "min_ms", "max_ms", "result"} with compile
-    excluded (one untimed warmup call).
+    excluded (one untimed warmup call). Each timed call ends when its
+    result is ready on the device.
     """
-    fn(*args, **kwargs)          # warmup/compile
-    device_sync()
+    device_sync(fn(*args, **kwargs))          # warmup/compile
     ctx = trace(logdir) if logdir else contextlib.nullcontext()
     times = []
     result = None
     with ctx:
         for _ in range(max(int(repeats), 1)):
             t0 = time.perf_counter()
-            result = fn(*args, **kwargs)
-            device_sync()
+            result = device_sync(fn(*args, **kwargs))
             times.append((time.perf_counter() - t0) * 1000.0)
     times.sort()
     return {"p50_ms": times[len(times) // 2], "min_ms": times[0],

@@ -9,7 +9,7 @@
 #   TerrainOnly; nearest hit across the enabled geometry kinds, shared
 #   shading. src/py_functions/adjudication.rs renders a PT + raster pair
 #   of the same scene for cross-validation (test_adjudication_gate.py).
-# TPU-native: each geometry kind is its own fused trace (sphere-traced
+# Here: each geometry kind is its own fused trace (sphere-traced
 # SDF tape, stackless BVH, min-max pyramid DDA); the nearest-hit merge and
 # the shading are plain fused jnp; one sun shadow ray re-queries every
 # enabled geometry (union occlusion).

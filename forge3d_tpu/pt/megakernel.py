@@ -11,7 +11,7 @@
 #   Python seam: _pt_render_gpu
 #   (/root/reference/src/py_functions/path_tracing/gpu.rs:4-60).
 #
-# TPU-native design: spheres come in as an SoA (N, ...) batch; each pixel
+# Design: spheres come in as an SoA (N, ...) batch; each pixel
 # reduces over spheres with a vectorized argmin — no per-pixel loop, no
 # queues. The whole image is one fused jnp program; jit-cached per
 # (width, height, n_spheres).

@@ -5,10 +5,10 @@
 # Parity notes (reference behavior, not code): the `_pt_render_gpu_mesh`
 # seam (SURVEY §A.7; /root/reference/src/py_module registration) renders a
 # triangle mesh with the same camera/shading contract as the sphere
-# megakernel. TPU-native design: the stackless threaded-BVH traversal
+# megakernel. Design: the stackless threaded-BVH traversal
 # (ops/bvh.py) runs as one fused lax.while_loop over all pixels — no
 # wavefront queues — and the scene pytree is passed as a jit argument so
-# tables live in HBM across frames (PERF.md rule).
+# tables stay resident in device memory across frames.
 
 from __future__ import annotations
 
@@ -75,7 +75,7 @@ def _render_mesh(width: int, height: int, n_nodes: int, scene: MeshScene,
         v, n, mat.albedo, mat.metallic, mat.roughness, mat.emissive,
         mat.roughness, mat.roughness)
 
-    # Sun NEE with a real BVH shadow ray (replaces shadow maps on TPU).
+    # Sun NEE with a real BVH shadow ray (replaces shadow maps).
     sp = p + n * 1e-3
     sh = trace_mesh(scene, n_nodes,
                     (sp[..., 0], sp[..., 1], sp[..., 2]),

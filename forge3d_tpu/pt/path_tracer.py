@@ -12,7 +12,7 @@
 #   - iter_tiles yields (x, y, w, h) tiles in deterministic row-major order
 #   - build_bvh returns a handle with triangle count + node stats
 #
-# In this build the "GPU path" IS the TPU megakernel (pt/megakernel.py), so
+# In this build the "GPU path" IS the JAX megakernel (pt/megakernel.py), so
 # render_rgba with use_gpu=True returns real rendered pixels and does not
 # need the synthetic gate; the gate applies to the legacy synthetic
 # fallback, preserving the reference's safety contract.

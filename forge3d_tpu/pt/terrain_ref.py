@@ -1,6 +1,6 @@
 # forge3d_tpu/pt/terrain_ref.py
 # PROMETHEUS: converged path-traced terrain reference — the north-star
-# workload, rebuilt TPU-native.
+# workload, rebuilt in JAX.
 #
 # Reference behavior being matched (not copied):
 #   - Entry + defaults: /root/reference/src/py_functions/path_tracing/
@@ -17,7 +17,7 @@
 #     non-convergence, ReSTIR temporal+spatial reuse between frames,
 #     runtime-contract range checks on readback).
 #
-# TPU-native design: the per-frame wgpu dispatch chain becomes ONE jitted
+# Design: the per-frame wgpu dispatch chain becomes ONE jitted
 # function with donated accumulator/welford/reservoir buffers — XLA fuses
 # the sample loop (lax.fori_loop over spp) with shading and accumulation, so
 # a frame is a single device program. The host loop only reads back one
@@ -83,9 +83,8 @@ class TerrainRefDesc:
     min_frames: int = 32
     variance_threshold: float = 1e-3
     shadows_enabled: bool = True
-    #: "dda" = stackless maxmip DDA (ops/traversal); "mxu" = matmul-gather
-    #: traversal (ops/traversal_mxu) — ~2x faster on TPU for primary-style
-    #: ray batches, numerically equivalent to ~1e-4.
+    #: "dda" = stackless maxmip DDA (ops/traversal), the per-ray engine;
+    #: "sweep" = the sweep estimator (pt/terrain_sweep).
     traversal: str = "dda"
     #: Shade the sun through the ReSTIR temporal+spatial reuse chain
     #: (reference behavior — note the reference's spatial pass mixes
@@ -174,7 +173,6 @@ def _camera_rays(desc: TerrainRefDesc, jx, jy):
 def _make_frame_step(
     desc: TerrainRefDesc,
     static: TerrainSceneStatic,
-    mxu_static=None,
     mesh_nodes: int = 0,
 ):
     """Build the per-frame device program. The scene tables and env map are
@@ -206,21 +204,8 @@ def _make_frame_step(
     oy = jnp.full((H, W), desc.cam_origin[1], _F32)
     oz = jnp.full((H, W), desc.cam_origin[2], _F32)
 
-    if mxu_static is not None:
-        from ..ops.traversal_mxu import trace_mxu
-
-        def _tr(scene_pair, ro, rd):
-            base, tabs = scene_pair
-            return trace_mxu(base, static, tabs, mxu_static, ro, rd)
-
-        def _base(scene_pair):
-            return scene_pair[0]
-    else:
-        def _tr(scene_pair, ro, rd):
-            return trace(scene_pair, static, ro, rd)
-
-        def _base(scene_pair):
-            return scene_pair
+    def _tr(scene, ro, rd):
+        return trace(scene, static, ro, rd)
 
     if mesh_nodes:
         from ..ops.bvh import trace_mesh
@@ -238,7 +223,7 @@ def _make_frame_step(
             hx = ro[0] + t * rd[0]
             hy = ro[1] + t * rd[1]
             hz = ro[2] + t * rd[2]
-            nx, ny, nz = normal_at(_base(scene), static, (hx, hy, hz),
+            nx, ny, nz = normal_at(scene, static, (hx, hy, hz),
                                    th.cell_x, th.cell_z)
             pid = jnp.maximum(mh.prim, 0)
             mnx = jnp.take(fnorm[:, 0], pid)
@@ -268,7 +253,7 @@ def _make_frame_step(
             hx = ro[0] + t * rd[0]
             hy = ro[1] + t * rd[1]
             hz = ro[2] + t * rd[2]
-            n = normal_at(_base(scene), static, (hx, hy, hz),
+            n = normal_at(scene, static, (hx, hy, hz),
                           th.cell_x, th.cell_z)
             return t, th.hit, (hx, hy, hz), n, None
 
@@ -321,7 +306,7 @@ def _make_frame_step(
 
         # ONE batched occlusion trace for sun + env rays: per-ray results
         # are independent, so stacking is bitwise-identical to two calls
-        # while halving the while_loop executions (PERF.md).
+        # while halving the while_loop executions.
         oro = (hx + nx * 1e-3, hy + ny * 1e-3, hz + nz * 1e-3)
         if shadows:
             occ2, _ = _occl_any(
@@ -534,21 +519,21 @@ def render_terrain_reference(desc: TerrainRefDesc) -> dict:
     rather than returning a non-converged image."""
     if desc.traversal == "sweep":
         # production path: sweep estimator (pt/terrain_sweep.py) — same
-        # converged integral as restir=False per-ray NEE, orders of
-        # magnitude faster on TPU (no per-ray gathers)
+        # converged integral as restir=False per-ray NEE, without per-ray
+        # marching
         if desc.lights:
             # typed point/area lights need per-ray NEE occlusion; refusing
             # beats silently dropping scene lighting (fail-closed)
             raise RenderError(
                 "traversal='sweep' integrates sun+env only; typed lights "
-                "need traversal='dda'/'mxu' (alias-table NEE)")
+                "need traversal='dda' (alias-table NEE)")
         if desc.mesh is not None:
             # the sweep propagates sun occlusion along heightfield rows;
             # mesh BVH occlusion needs per-ray traversal (fail-closed —
             # the public entry already falls back to 'dda')
             raise RenderError(
                 "traversal='sweep' cannot trace mesh geometry; use "
-                "traversal='dda'/'mxu' for hybrid terrain+mesh scenes")
+                "traversal='dda' for hybrid terrain+mesh scenes")
         from .terrain_sweep import render_terrain_sweep
 
         return render_terrain_sweep(desc)
@@ -562,17 +547,7 @@ def render_terrain_reference(desc: TerrainRefDesc) -> dict:
         pyr, origin_xz=(0.0, 0.0), spacing_xz=desc.spacing,
         exaggeration=desc.exaggeration,
     )
-    mxu_static = None
-    scene_arg = scene
-    if desc.traversal == "mxu":  # (sweep dispatched above)
-        from ..ops.traversal_mxu import build_mxu_tables
-
-        # spacing/origin live in the scene; tables bake exaggeration only
-        tables, mxu_static = build_mxu_tables(
-            np.asarray(desc.heights, np.float32),
-            exaggeration=desc.exaggeration)
-        scene_arg = (scene, tables)
-    elif desc.traversal != "dda":
+    if desc.traversal != "dda":  # (sweep dispatched above)
         raise ValueError(f"unknown traversal {desc.traversal!r}")
 
     env = EnvMap(
@@ -614,7 +589,7 @@ def render_terrain_reference(desc: TerrainRefDesc) -> dict:
 
     try:
         frame_step = jax.jit(
-            _make_frame_step(desc, static, mxu_static, mesh_nodes),
+            _make_frame_step(desc, static, mesh_nodes),
             donate_argnums=(3, 4)
         )
         reuse_step = jax.jit(_make_reuse_step(desc), donate_argnums=(0,))
@@ -635,7 +610,7 @@ def render_terrain_reference(desc: TerrainRefDesc) -> dict:
         converged = False
         while frames < desc.max_frames:
             accum, welford, curr, res_prev_c = frame_step(
-                scene_arg, env, mesh_arg, accum, welford, res_prev,
+                scene, env, mesh_arg, accum, welford, res_prev,
                 jnp.uint32(frames)
             )
             res_prev = reuse_step(res_prev_c, curr, gb_n, jnp.uint32(frames))
@@ -745,7 +720,7 @@ def hybrid_render_terrain_reference(
     SAH BVH is traced for primary AND shadow rays alongside the terrain
     DDA.  The sweep estimator cannot express mesh occlusion, so hybrid
     scenes dispatch to the per-ray engine (traversal='sweep' with a mesh
-    falls back to 'dda'; see PERF.md for the measured throughput)."""
+    falls back to 'dda')."""
     if (mesh_vertices is None) != (mesh_indices is None):
         raise ValueError("mesh_vertices and mesh_indices must be provided together")
     mesh = None

@@ -8,7 +8,7 @@
 #     SSAO toggles (/root/reference/src/scene/py_api/base.rs:8-95,
 #     src/scene/mod.rs:39-80, render_paths/png.rs:2).
 #   - The reference draws a grid mesh displaced by the height texture with a
-#     colormap LUT; on TPU the same image comes from primary-visibility rays
+#     colormap LUT; here the same image comes from primary-visibility rays
 #     against the heightfield (no raster pipeline), reusing the terrain
 #     traversal core.
 #   - MENSURA: camera positions cross the boundary in f64 and are narrowed

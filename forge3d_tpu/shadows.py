@@ -6,7 +6,7 @@
 # set_csm_enabled / set_csm_light_direction / set_csm_pcf_kernel /
 # set_csm_bias_params / set_csm_debug_mode / get_csm_cascade_info /
 # validate_csm_peter_panning, with cascade split math in
-# src/shadows/cascade_math.rs. TPU translation: shadows are heightfield
+# src/shadows/cascade_math.rs. Translation: shadows are heightfield
 # ray queries (no shadow maps), but the SAME state drives shadow quality
 # (ray count = PCF kernel analogue, bias = ray-origin offset), and the
 # cascade-split math is kept for parity + the viewer's cascade debug view.

@@ -11,7 +11,7 @@
 #   render, memory/physics reports, AtmosphericSmokeCube ingestion
 #   (HRRR-style density cubes for the wildfire video workload).
 #
-# TPU-native design: grids are (nz, ny, nx) arrays; advection is one fused
+# Design: grids are (nz, ny, nx) arrays; advection is one fused
 # gather (trilinear sample at backtraced positions), the pressure solve is
 # `jacobi_iters` stencil sweeps (shifted adds — no gathers), and the
 # renderer marches all pixels in lockstep with a lax.fori_loop. Axes: x is
@@ -484,5 +484,5 @@ class AtmosphericSmokeCube:
 
 
 def native_smoke_available() -> bool:
-    """Always True: the jnp engine IS the native engine on TPU."""
+    """Always True: the jnp engine IS the native engine."""
     return True

@@ -7,7 +7,7 @@
 # L nested rings centered on the camera, each covering 2x the extent of
 # the previous at half resolution, updated incrementally as the camera
 # moves (toroidal addressing so only newly-exposed rows/cols upload), with
-# geomorphing between levels. TPU translation: each level is a fixed
+# geomorphing between levels. Translation: each level is a fixed
 # (N, N) f32 array in HBM (static shapes for jit); recentering computes
 # the newly-exposed strips host-side and updates via jnp dynamic slices;
 # the renderer samples the finest level containing each query point.

@@ -5,7 +5,7 @@
 # Parity notes: field names and grouping mirror the reference's Python
 # mirror (/root/reference/python/forge3d/terrain_params.py:16-1923) and the
 # native decode layout (src/terrain/render_params/core.rs:38-97). Settings
-# groups not yet wired into the TPU shading path are accepted, validated and
+# groups not yet wired into the JAX shading path are accepted, validated and
 # carried (so recipes round-trip losslessly); the renderer reports which
 # groups it consumed via TerrainRenderer.last_consumed_settings.
 
@@ -45,7 +45,7 @@ class IblSettings:
 @dataclass
 class ShadowSettings:
     enabled: bool = True
-    technique: str = "raytrace"  # TPU path ray-marches the heightfield;
+    technique: str = "raytrace"  # this path ray-marches the heightfield;
     # accepts reference names (hard/pcf/pcss/vsm/evsm/msm/csm) and maps
     # them onto ray-traced sun visibility with matching softness.
     softness: float = 0.0        # angular radius (deg) for soft shadows
@@ -245,7 +245,7 @@ class DetailSettings:
 class MaterialLayerSettings:
     """Height/slope material layers (snow/rock/wetness).
 
-    Carries both the TPU perspective-path knobs (snow_height/snow_blend/
+    Carries both the engine's perspective-path knobs (snow_height/snow_blend/
     rock_slope_deg) and the full reference M4 schema
     (/root/reference/python/forge3d/terrain_params.py:546-600) consumed by
     the screen-mode pass, including TV10 subsurface scattering."""
@@ -361,7 +361,7 @@ class TerrainRenderParams:
     #: "screen" = the reference's default fullscreen-triangle forward
     #: pass (terrain_pbr_pom.wgsl shade_main), evaluated by the jitted
     #: screen pipeline (terrain/screen.py); "perspective" = the
-    #: TPU-native orbit ray render (the default here: it is this
+    #: Orbit ray render (the default here: it is this
     #: engine's production path and what every perf harness drives)
     camera_mode: str = "perspective"
     culling: str = "frustum"

@@ -6,7 +6,7 @@
 # scatter.rs + renderer/scatter.rs + python/forge3d/terrain_scatter.py
 # (938 LoC) place instance batches (position, rotation, scale, kind) by
 # deterministic stratified sampling filtered by slope/height/mask rules,
-# and report per-batch instance counts + memory. TPU-native: placement is
+# and report per-batch instance counts + memory. Here: placement is
 # host-side numpy (deterministic, seeded); rendering instances as
 # billboards/meshes feeds the mesh tracer or splat compositor.
 

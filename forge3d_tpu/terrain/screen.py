@@ -1,4 +1,4 @@
-"""TPU-engine screen-mode terrain render (``camera_mode="screen"``).
+"""Engine screen-mode terrain render (``camera_mode="screen"``).
 
 JAX/jit implementation of the reference's fullscreen-triangle forward pass
 (`src/shaders/terrain_pbr_pom.wgsl:3130` ``shade_main`` dispatched via
@@ -48,20 +48,6 @@ CACHE_DIR = Path(
     )
 )
 
-# Persistent XLA compilation cache: the screen pipeline compiles one
-# program per (size, feature-set) config; across processes the cache
-# turns the multi-minute first compile into a disk load.
-if not os.environ.get("FORGE3D_NO_JIT_CACHE"):
-    try:
-        _jit_cache = Path(
-            os.environ.get("FORGE3D_JIT_CACHE",
-                           Path.home() / ".cache" / "forge3d_tpu" / "jit"))
-        _jit_cache.mkdir(parents=True, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", str(_jit_cache))
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
-    except Exception:
-        pass
-
 # Composition constants derived from the reference beauty pass
 # (terrain_pbr_pom.wgsl:4443-4570; see screen_golden.py for the evidence).
 SHADOW_MIN = 0.20
@@ -75,6 +61,7 @@ WATER_BASE_TINT_SCALE = 0.80
 WATER_SCATTER_SCALE = 2.0
 
 _F32 = jnp.float32
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 # PCSS poisson disks (terrain_pbr_pom.wgsl:1057-1069, 1245-1262)
 _POISSON_12 = np.array([
@@ -660,7 +647,9 @@ def pcss_visibility(depth_map, lvp, texel_size, shadow_pos, normal,
     """sample_shadow_pcf_terrain, technique PCSS (jnp port of the oracle)."""
     flat = shadow_pos.reshape(-1, 3)
     lvp = jnp.asarray(lvp)
-    ndc = flat @ lvp[:3, :3].T + lvp[:3, 3]
+    # HIGHEST: world positions -> shadow depth, compared at a 5e-4 bias;
+    # a TF32 product (~10 mantissa bits) would move the depth past it
+    ndc = jnp.matmul(flat, lvp[:3, :3].T, precision=_HIGHEST) + lvp[:3, 3]
     su = ndc[:, 0] * 0.5 + 0.5
     sv = ndc[:, 1] * -0.5 + 0.5
     depth01 = ndc[:, 2]
@@ -759,10 +748,11 @@ def _render_sky(width, height, *, inv_view, inv_proj, u, model):
 
     clip = jnp.concatenate(
         [ndc, jnp.ones(ndc.shape[:2] + (2,), _F32)], -1)
-    vp = clip @ inv_proj.T
+    # HIGHEST on both: per-pixel view directions feed the sky and fog
+    vp = jnp.matmul(clip, inv_proj.T, precision=_HIGHEST)
     vdir = vp[..., :3] / vp[..., 3:4]
     vdir = vdir / jnp.linalg.norm(vdir, axis=-1, keepdims=True)
-    wdir = vdir @ inv_view[:3, :3].T
+    wdir = jnp.matmul(vdir, inv_view[:3, :3].T, precision=_HIGHEST)
     wdir = wdir / jnp.linalg.norm(wdir, axis=-1, keepdims=True)
 
     cos_theta = jnp.maximum(wdir[..., 1], 0.0)
@@ -1573,7 +1563,8 @@ def _planar_reflection_blend_jnp(ibl_contrib, u, world_pos, shading_normal,
     rvp = u["refl_rvp"]
     refl_tex = u["refl_tex"]
     wp = world_pos.reshape(-1, 3)
-    clip4 = wp @ rvp[:3, :4] + rvp[3, :4]
+    # HIGHEST: world positions -> reflection texture coordinates
+    clip4 = jnp.matmul(wp, rvp[:3, :4], precision=_HIGHEST) + rvp[3, :4]
     w_ok = jnp.abs(clip4[:, 3]) >= 0.001
     wdiv = jnp.where(w_ok, clip4[:, 3], 1.0)
     ndc = clip4[:, :3] / wdiv[:, None]
@@ -1628,7 +1619,7 @@ def render_screen_scene(
     return_aov=False, height_filterable=False, generation="family",
     encode="gamma", material_maps=None,
 ):
-    """TerrainRenderer.render_terrain_pbr_pom in screen mode — the TPU
+    """TerrainRenderer.render_terrain_pbr_pom in screen mode — the JAX
     engine path. Same contract as the numpy oracle
     (screen_golden.render_screen_scene); returns (H, W, 4) u8, or
     (u8, aov dict) when return_aov."""
@@ -1834,7 +1825,7 @@ def blit_resolve(img, out_w, out_h):
 
 
 # ---------------------------------------------------------------------------
-# Clipmap camera mode — the TPU engine path.
+# Clipmap camera mode — the JAX engine path.
 #
 # Geometry: the CPU ring mesh rasterized host-side into a per-pixel
 # G-buffer (clipmap_mesh.rasterize_clipmap_gbuffer mirrors
@@ -2037,7 +2028,7 @@ def render_clipmap_scene(
     hue_variation_strength=0.08, hdr_rgb=None, domain=(0.0, 1.0),
     pom=None, generation="recipe", encode="gamma", **_ignored,
 ):
-    """TerrainRenderer clipmap camera mode — the TPU engine path.
+    """TerrainRenderer clipmap camera mode — the JAX engine path.
 
     Same contract as the numpy oracle
     (screen_golden.render_clipmap_scene); returns (H, W, 4) u8."""

@@ -4,7 +4,7 @@
 # terrain_visibility_stats, terrain_vt_stats, terrain_seam_stats —
 # python/forge3d/__init__.py:151-156, SURVEY §5).
 #
-# TPU translation: there is no HZB pass — "culling" reports the DDA
+# Translation: there is no HZB pass — "culling" reports the DDA
 # early-exit economics of the last trace (blocks skipped by the coarse
 # band test stand in for HZB-culled tiles); visibility reports hit-rate
 # per frame; vt stats report the streaming cache when one is attached;

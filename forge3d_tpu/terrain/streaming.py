@@ -5,7 +5,7 @@
 # (src/terrain/page_table/height_loader.rs:36-222, terrain/stream/):
 # tiles are requested around the camera with a prefetch horizon, loaded
 # on a worker pool, kept in an LRU byte budget, and assembled into
-# mosaics for upload. TPU-native equivalent: a ThreadPoolExecutor tile
+# mosaics for upload. Equivalent here: a ThreadPoolExecutor tile
 # loader over any `(tile_x, tile_z, lod) -> (n, n) float32` source
 # (GeoTIFF windows, COG ranges, procedural), an LRU cache charged
 # against the memory ledger, and a windowed mosaic sampler that plugs

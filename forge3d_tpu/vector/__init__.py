@@ -2,7 +2,7 @@
 #
 # Parity notes: the reference's vector module renders AA polylines,
 # tessellated polygons, instanced points and OIT compositing through wgpu
-# pipelines (/root/reference/src/vector/, SURVEY §2.4). The TPU build
+# pipelines (the reference's src/vector/, SURVEY §2.4). This build
 # evaluates analytic coverage per pixel (vector/coverage.py) and composites
 # in linear color — same public add_points/add_lines/add_polygons/
 # clear_vectors + render seam (src/py_functions/vector/*).

@@ -1,7 +1,7 @@
 # forge3d_tpu/vector/coverage.py
 # Analytic anti-aliased coverage for vector primitives (LIMES-equivalent):
 # per-pixel coverage of round-stroked polylines, filled polygons and point
-# discs, computed as fused jnp programs — the TPU replacement for the
+# discs, computed as fused jnp programs — the replacement for the
 # reference's raster vector pipeline.
 #
 # Parity notes (reference behavior, not code):
@@ -13,7 +13,7 @@
 #     area coverage up to boundary curvature over one pixel, which is the
 #     same tolerance class the reference certifies.
 #   - line_aa.wgsl / polygon_fill.wgsl / point instancing replaced by dense
-#     per-pixel evaluation over segment batches (VPU-friendly: the E-segment
+#     per-pixel evaluation over segment batches (vector-friendly: the E-segment
 #     loop is a lax.scan with (P,)-shaped running minima).
 
 from __future__ import annotations
@@ -135,7 +135,7 @@ def composite_over(base_rgb: jax.Array, coverage: jax.Array,
 
 
 def oit_composite(base_rgb, layers):
-    """Order-independent transparency: on TPU this is simply sorted alpha
+    """Order-independent transparency: here this is simply sorted alpha
     compositing of the (already host-ordered) layer list — the dual-source
     OIT machinery of the raster pipeline is unnecessary (SURVEY §7
     'OIT becomes trivial')."""

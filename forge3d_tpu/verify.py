@@ -1,12 +1,12 @@
 # forge3d_tpu/verify.py
-# PROBATUM: kernel value-safety contracts — the TPU analogue of the
+# PROBATUM: kernel value-safety contracts — the JAX analogue of the
 # reference's shader proofs.
 #
 # Parity notes (reference behavior, not code): /root/reference/src/verify/
 # (10.5k LoC) abstract-interprets every registered WGSL module against
 # committed value-safety contracts (shaders/contracts/*.toml) and fails
 # closed on unproven modules; runtime contract asserts are a cargo
-# feature. TPU translation: kernels are jitted jnp functions, so proofs
+# feature. Translation: kernels are jitted jnp functions, so proofs
 # become (1) a registry of value contracts per kernel output, (2) a
 # checkify-based runtime validator that wraps a kernel and asserts the
 # contracts on-device, and (3) `shader_report()` listing every registered

@@ -168,16 +168,53 @@ class ViewerHandle:
         return self.send("load_bundle", path=str(path))
 
 
+def _holds_gpu() -> bool:
+    """True when this process has already opened a JAX GPU backend. JAX
+    reserves most of a card's memory when it opens it, so a second JAX
+    process that opens the same card fails for want of memory."""
+    if "jax" not in sys.modules:
+        return False
+    from jax._src import xla_bridge
+
+    if not xla_bridge.backends_are_initialized():
+        return False
+    import jax
+
+    return any(d.platform == "gpu" for d in jax.devices())
+
+
+def _child_may_open_gpu(env: dict) -> bool:
+    """Whether a JAX child process started with `env` would reserve the
+    usual share of a GPU (no platform restriction away from the GPU and
+    no explicit memory fraction)."""
+    if "XLA_PYTHON_CLIENT_MEM_FRACTION" in env:
+        return False
+    platforms = [p for p in env.get("JAX_PLATFORMS", "").split(",") if p]
+    return not platforms or any(p in ("cuda", "gpu") for p in platforms)
+
+
 def open_viewer_async(*, terrain_path=None, width: int = 1024,
                       height: int = 768, timeout: float = 120.0,
                       env: Optional[dict] = None) -> ViewerHandle:
     """Launch the viewer server process and return a connected handle
-    (reference seam: open_viewer_async, viewer.py:1363)."""
+    (reference seam: open_viewer_async, viewer.py:1363).
+
+    The viewer is a second JAX process. If this process already holds the
+    GPU, the launch is refused with a ViewerError unless `env` keeps the
+    viewer off the card (JAX_PLATFORMS=cpu) or gives it its own share
+    (XLA_PYTHON_CLIENT_MEM_FRACTION)."""
     cmd = [sys.executable, "-m", "forge3d_tpu.viewer",
            "--width", str(width), "--height", str(height)]
     proc_env = dict(os.environ)
     if env:
         proc_env.update(env)
+    if _child_may_open_gpu(proc_env) and _holds_gpu():
+        raise ViewerError(
+            "this process already holds the GPU through JAX, which "
+            "reserves most of the card's memory; a viewer process opening "
+            "the same card would fail for want of device memory. Open the "
+            "viewer before any JAX work, or pass env={'JAX_PLATFORMS': "
+            "'cpu'} or an XLA_PYTHON_CLIENT_MEM_FRACTION share for it.")
     # the package must be importable in the child
     repo_root = str(Path(__file__).resolve().parents[2])
     proc_env["PYTHONPATH"] = repo_root + os.pathsep + proc_env.get("PYTHONPATH", "")

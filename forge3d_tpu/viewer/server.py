@@ -1,5 +1,5 @@
 # forge3d_tpu/viewer/server.py
-# Headless interactive viewer: TCP JSON-IPC server around the TPU render
+# Headless interactive viewer: TCP JSON-IPC server around the JAX render
 # engine.
 #
 # Parity notes (reference behavior, not code): /root/reference/src/viewer/
@@ -7,7 +7,7 @@
 # "FORGE3D_VIEWER_READY port=N" on stdout and accepts one JSON object per
 # command with a snake_case `cmd` tag (ipc/server.rs,
 # ipc/protocol/request.rs:19-142 — 78 request variants, SURVEY §A.5);
-# the Python client connects a socket per command. TPU-native design: the
+# the Python client connects a socket per command. Design: the
 # viewer is headless-first (every reference test drives it by IPC);
 # interactive rendering happens through the same JAX engine at reduced
 # sample counts, and `snapshot` re-renders offscreen at the requested size.

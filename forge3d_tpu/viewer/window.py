@@ -3,7 +3,7 @@
 # Parity notes (reference behavior, not code): the reference's viewer
 # opens a winit OS window with a 60 FPS event loop, orbit-drag camera
 # input and an on-frame HUD (src/viewer/event_loop/runner.rs:58-89,
-# src/viewer/hud.rs, src/viewer/input/). A TPU render node is headless —
+# src/viewer/hud.rs, src/viewer/input/). A render node is headless —
 # the display belongs to the client — so this build's "window" is an
 # HTTP surface: any browser is the swapchain. It serves
 #   GET /            the window page (live <img>, drag-orbit, wheel zoom)

@@ -5,8 +5,8 @@
 # 48-49,951-954 and tests/goldens/determinism/*.sha256, SURVEY §4):
 # - update baselines with FORGE3D_UPDATE_GOLDENS=1 (re-read at call time)
 # - a negative-control test guards the gate itself
-# - goldens are per-topology (the CPU test backend here; TPU runs record
-#   their own variants, like the reference's per-backend `metal` files)
+# - goldens are per-topology (the CPU test backend here; a GPU run records
+#   its own variants, like the reference's per-backend `metal` files)
 
 import json
 import os

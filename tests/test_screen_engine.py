@@ -1,6 +1,6 @@
 # Engine screen pipeline == numpy oracle (VERDICT r3 item 1).
 #
-# The jitted TPU screen pipeline (forge3d_tpu/terrain/screen.py) must
+# The jitted JAX screen pipeline (forge3d_tpu/terrain/screen.py) must
 # reproduce the behavior-exact numpy replica
 # (forge3d_tpu/terrain/screen_golden.py — now a test-only oracle) on the
 # reference terrain golden family. Measured at swap time: byte-identical

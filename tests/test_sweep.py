@@ -186,8 +186,7 @@ def test_polar_hits_match_dda():
     values = jnp.stack([t_dist, ones], -1)
     miss = jnp.zeros((ps.e_count, ps.a_count, 2), jnp.float32)
     polar = synthesize_polar(values, q_prof, miss, ps, je=0.0)
-    img = warp_to_screen(polar, ps, width=W, height=H, fov_y_deg=40.0,
-                         right=right, up=up_v, fwd=fwd, supersample=1)
+    img = warp_to_screen(polar, ps, width=W, height=H, supersample=1)
     t_sweep = np.asarray(img[..., 0])
     vis_sweep = np.asarray(img[..., 1])
 

@@ -2,7 +2,7 @@
 #
 # Parity notes: the reference viewer opens a winit window with a 60 FPS
 # event loop, orbit input and a HUD (src/viewer/event_loop/runner.rs:58-89,
-# src/viewer/hud.rs). The TPU build serves the same loop over HTTP; these
+# src/viewer/hud.rs). This build serves the same loop over HTTP; these
 # tests drive the endpoints exactly as the browser page does.
 
 import io
