@@ -41,7 +41,9 @@ _F32 = jnp.float32
 _NEG = jnp.float32(-1.0e30)
 
 #: Rows per unrolled step of the propagation scan (the per-row body is
-#: small B x U vector work, so per-iteration overhead is visible).
+#: small B x U vector work, so per-iteration overhead is visible). On an
+#: H100 (700 W), sweep_lighting over 4 frames of the 1920x1080 / 1025^2
+#: job took 32.2 ms at 8, 36.1 ms at 16 and 105.0 ms at 1 (PERF.md).
 SCAN_UNROLL = 8
 
 
